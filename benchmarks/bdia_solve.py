@@ -35,8 +35,8 @@ def main():
 
     import jax
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/pst_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from pysolvers_tpu.utils.platform import enable_persistent_cache
+    enable_persistent_cache()
     import jax.numpy as jnp
     import pysolvers_tpu as pst
     from pysolvers_tpu.sparse.bdia import BdiaMatrix
@@ -94,7 +94,7 @@ def main():
                   implied_gnnzs_per_pass=round(nnz / per_it / 1e9, 2)))
 
     # --- CONVERGED lockstep multi-RHS at 1e-10 (blocked mixed route:
-    # per-column f64 residuals, f32 lockstep tiles inner — items 2+5) --
+    # per-column f64 residuals, f32 lockstep inner) --------------------
     X_true_k = rng.random((n, args.k))
     B_nat = np.stack([H.matvec(X_true_k[:, j]) for j in range(args.k)],
                      axis=1)
@@ -118,14 +118,12 @@ def main():
               amortization_at_tol=round(
                   args.k * wall_by_prec["bjacobi"] / wall_m, 2)))
 
-    # --- multi-RHS amortization (native f32 lockstep, kernel-resident
-    # tiles layout: both the operator pass and the block-Jacobi apply
-    # are BDIA Pallas SpMMs on the 4-D layout — zero per-iteration
-    # layout moves; solve(BdiaMatrix, B) rides the same route) ---------
+    # --- multi-RHS amortization (native f32 lockstep in the planar row
+    # layout: the operator pass and the block-Jacobi apply are planar
+    # SpMMs; solve(BdiaMatrix, B) rides the same route) ----------------
     from pysolvers_tpu.linear.block_precond import block_jacobi_bdia_matrix
-    from pysolvers_tpu.linear.krylov import cg_solve_multi_tiles
-    from pysolvers_tpu.ops.spmv import (bdia_rows_to_tiles,
-                                        bdia_spmm_tiles, bdia_tile_size)
+    from pysolvers_tpu.linear.krylov import cg_solve_multi_rows
+    from pysolvers_tpu.ops.spmv import bdia_spmm_rows
 
     A32 = Ad.astype(jnp.float32)
     M32 = block_jacobi_bdia_matrix(A32)
@@ -137,17 +135,12 @@ def main():
         Bp = jnp.asarray(B[:, :kk].T.reshape(kk, nb, bb)
                          .transpose(0, 2, 1).reshape(kk, n),
                          dtype=jnp.float32)
-        tile = bdia_tile_size(A32, kk)
 
-        # the rows->tiles layout move runs INSIDE the timed jit: solve()
-        # pays it once per solve, so the reported t_k must include it
-        # (ADVICE r4)
         @jax.jit
         def run(A, M, Bp):
-            B4 = bdia_rows_to_tiles(A, Bp, tile)
-            X, st, _ = cg_solve_multi_tiles(
-                lambda V4: bdia_spmm_tiles(A, V4), B4, maxiter=600,
-                tau=1e-5, precond=lambda V4: bdia_spmm_tiles(M, V4))
+            X, st, _ = cg_solve_multi_rows(
+                lambda V: bdia_spmm_rows(A, V), Bp, maxiter=600,
+                tau=1e-5, precond=lambda V: bdia_spmm_rows(M, V))
             return X, st.k
 
         Xs, ks = run(A32, M32, Bp)

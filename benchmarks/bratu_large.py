@@ -41,8 +41,8 @@ def _mg_levels(m: int) -> int:
 def run_ours(args, emit):
     import jax
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/pst_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from pysolvers_tpu.utils.platform import enable_persistent_cache
+    enable_persistent_cache()
     from pysolvers_tpu import (CommonSolverArgs, NewtonSolver, PCG,
                                SolverConfig)
     from pysolvers_tpu.linear.gmg import GMGPreconditionerType
@@ -92,7 +92,8 @@ def run_ours(args, emit):
 def run_reference(args, emit):
     from run_reference import _make_stubs
     _make_stubs()
-    sys.path.insert(0, "/tmp/refstubs")
+    from run_reference import STUBS
+    sys.path.insert(0, STUBS)
     sys.path.insert(0, "/root/reference")
     import scipy.sparse as sp
     from PySolvers import CommonSolverArgs

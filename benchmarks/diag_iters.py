@@ -109,10 +109,8 @@ def main():
     A = to_scipy(H).astype(np.float64)
     b = b.astype(np.float64)
 
-    # battery route: RCM permutation first (BWS pack), factor the permuted
-    from pysolvers_tpu.sparse.bws import BwsMatrix
-    _, _, perm = BwsMatrix.host_pack(H, dtype=np.float32)
-    perm = np.asarray(perm)
+    # battery route: RCM permutation first, factor the permuted
+    perm = H.rcm_perm()
     Hp = H.permute_symmetric(perm)
     Ap_ = to_scipy(Hp).astype(np.float64)
     bp = b[perm]

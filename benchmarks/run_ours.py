@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Measure pysolvers_tpu on the BASELINE.md configurations.
+"""Measure pysolvers_tpu on the reference parity configurations.
 
 Same JSON schema as run_reference.py: {config, time_s, iters, err, success}.
 time_s includes preconditioner/hierarchy setup (as the reference's does) but
@@ -31,8 +31,8 @@ def main():
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
     jax.config.update("jax_enable_x64", True)
-    jax.config.update("jax_compilation_cache_dir", "/tmp/pst_jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from pysolvers_tpu.utils.platform import enable_persistent_cache
+    enable_persistent_cache()
     import jax.numpy as jnp
     import pysolvers_tpu as pst
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Measure the reference PySolvers on this host (BASELINE.md configs).
+"""Measure the reference PySolvers on this host (the parity configurations).
 
 Runs the six SURVEY §6 configurations against /root/reference with stub
 PyTab/PyTimer packages (the author's unpublished helper deps).  Emits JSON
@@ -11,9 +11,11 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
-STUBS = "/tmp/refstubs"
+# import stubs for the reference checkout, under the temp directory
+STUBS = os.path.join(tempfile.gettempdir(), "pst_refstubs")
 
 
 def _make_stubs():

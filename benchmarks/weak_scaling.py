@@ -2,17 +2,13 @@
 """Weak-scaling harness: distributed SpMV nnz/s efficiency over a mesh.
 
 Fixed work per shard (rows_per_shard), growing mesh 1..max devices.  The
-north-star metric (BASELINE.json) is >=80% weak-scaling nnz/s efficiency.
+target is >=80% weak-scaling nnz/s efficiency.
 Runs on any device set — the virtual 8-device CPU mesh (default in tests)
-or a real TPU slice.
+or several GPUs.
 
 Paths (--paths): "dia" (ppermute neighbor halos), "ell_halo"
 (neighbor-halo ELL — vector never replicated), "solve" (whole-solve
-PCG + partition-local AMG).  The "ell2d" 2-D grid path was retired in
-round 5 — its shard-local ELL gather measures 39x the DIA kernel on
-the real TPU chip (our_results/ell2d_decision_r5.jsonl), intrinsic to
-gather-based local formats, not the CPU-backend artifact the r4
-decomposition hypothesized.
+PCG + partition-local AMG).
 
 Overhead decomposition (VERDICT r2 item 5), dia path: every record
 carries the same-total-problem timings

@@ -22,7 +22,7 @@ def main():
     ap.add_argument("--precision", default="native",
                     choices=["native", "mixed"],
                     help="mixed = f32 device kernels + f64 host-residual"
-                         " refinement (the fast TPU route to tight taus)")
+                         " refinement (the f32 route to tight taus)")
     from pysolvers_tpu.utils.platform import (add_platform_arg,
                                                enable_persistent_cache,
                                                ensure_platform)

@@ -1,7 +1,7 @@
 // pst_native: host-side setup kernels for pysolvers_tpu.
 //
 // The reference delegates its native work to SuperLU/scipy C kernels
-// (SURVEY §2.1); this library is the TPU framework's equivalent runtime:
+// (SURVEY §2.1); this library is the framework's equivalent runtime:
 // everything latency-critical in the *setup phase* — incomplete
 // factorization, SpGEMM for Galerkin products, aggregation, level
 // scheduling, bandwidth-reducing reordering, MatrixMarket parsing — runs

@@ -1,10 +1,10 @@
-"""pysolvers_tpu — a TPU-native sparse linear-algebra and iterative-solver
-framework (JAX / XLA / Pallas), with the capability surface of PySolvers
-(reference: krlong014/PySolvers) redesigned TPU-first.
+"""pysolvers_tpu — a sparse linear-algebra and iterative-solver framework
+on JAX / XLA, with the capability surface of PySolvers (reference:
+krlong014/PySolvers) redesigned for an accelerator.
 
 Layers (bottom-up):
   sparse/    host + device sparse containers, MatrixMarket I/O
-  ops/       Pallas/XLA kernels: SpMV, triangular solves, fused vector ops
+  ops/       XLA kernels: SpMV, triangular solves, fused setup
   linear/    Krylov solvers, preconditioners, AMG, direct solver
   nonlinear/ inexact Newton, line searches
   parallel/  device-mesh partitioning, halo exchange, distributed solvers

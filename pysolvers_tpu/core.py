@@ -38,7 +38,7 @@ class SolverConfig:
 
     Mirrors the reference's CommonSolverArgs (IterativeSolver.py:42-57):
     maxiter, failOnMaxiter, tau, pluggable norm, showIters/showFinal/interval.
-    TPU additions: dtype policy and restart length (GMRES).
+    Additions: dtype policy and restart length (GMRES).
     """
 
     maxiter: int = 100
@@ -70,7 +70,7 @@ class SolveStatus:
     """Uniform solve result (host-side record).
 
     Parity with reference SolveStatus.py:8-56: success flag, solution,
-    final residual norm, iteration count, message.  TPU additions: stop
+    final residual norm, iteration count, message.  Additions: stop
     reason code and per-iteration residual history (fixed-size trace buffer
     — the jit-friendly replacement for the reference's per-iteration prints,
     IterativeSolver.py:90-99).

@@ -14,6 +14,8 @@ from typing import Callable, Tuple
 import jax
 import jax.numpy as jnp
 
+_HI = jax.lax.Precision.HIGHEST
+
 
 def givens_coefficients(a, b):
     """(c, s) with [c s; -s c]ᵀ... zeroing b (reference Givens.py:7-12).
@@ -52,13 +54,13 @@ def arnoldi(matvec: Callable, q0: jax.Array, m: int,
         u = matvec(Q[k])
         if method == "cgs":
             mask = (jnp.arange(m + 1) <= k).astype(dtype)
-            h = (Q @ u) * mask
-            u = u - h @ Q
+            h = jnp.matmul(Q, u, precision=_HI) * mask
+            u = u - jnp.matmul(h, Q, precision=_HI)
         else:
             def mgs_body(j, carry):
                 u, h = carry
                 active = (j <= k).astype(dtype)
-                hj = active * jnp.dot(Q[j], u)
+                hj = active * jnp.dot(Q[j], u, precision=_HI)
                 return u - hj * Q[j], h.at[j].set(hj)
             u, h = jax.lax.fori_loop(0, m + 1, mgs_body,
                                      (u, jnp.zeros(m + 1, dtype=dtype)))

@@ -7,7 +7,7 @@ Capability parity:
 * GMRES — reference PySolvers/Linear/GMRESSolver.py:55-180 (right
   preconditioning A·M⁻¹, modified-Gram-Schmidt Arnoldi, incremental Givens
   triangularization, implicit residual |g[k+1]|, true-residual recheck on
-  convergence, lucky-breakdown handling).  TPU redesign: fixed restart
+  convergence, lucky-breakdown handling).  Device design: fixed restart
   length m, masked basis in a static (m+1, n) buffer, whole solve under
   ``lax.while_loop`` — no Python control flow, no dynamic shapes.
 
@@ -26,8 +26,9 @@ import jax.numpy as jnp
 
 from ..core import SolverConfig, StopReason
 
-# exact matmul accumulation — the TPU default is bf16, which is ~4e-3
-# relative noise on basis projections / solution formation
+# exact matmul accumulation — a default-precision f32 matmul may round
+# its operands to TF32 (~1e-3 relative noise on basis projections and
+# solution formation)
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -187,11 +188,11 @@ def cg_solve_multi(matvec: Callable, B: jax.Array,
     (X, KrylovState-of-vectors, None) with per-column iteration counts,
     residual norms and stop reasons.
 
-    TPU rationale: each iteration makes ONE pass over the operator for
+    Rationale: each iteration makes ONE pass over the operator for
     all columns (``matvec`` is an SpMM taking (n, k_rhs) -> (n, k_rhs),
     e.g. ``lambda V: ops.matmat(A, V)``) — k× the arithmetic intensity
     of k sequential solves on the bandwidth-bound SpMV, and the dense
-    column blocks feed the MXU.  Finished columns are frozen (masked
+    column blocks feed dense matrix units.  Finished columns are frozen (masked
     alpha/beta), so mixed convergence speeds cost no extra updates; the
     loop runs until every column has stopped.  No reference counterpart
     (the reference solves one RHS per call, PCGSolver.py:64-145);
@@ -263,38 +264,15 @@ def cg_solve_multi_rows(matmat_rows: Callable, B: jax.Array, *,
     """Lockstep multi-RHS CG in ROW layout: ``B`` is (k_rhs, n), one RHS
     per ROW; ``matmat_rows``/``precond`` map (k, n) -> (k, n).
 
-    Why a second layout: XLA's TPU tiling pads the MINOR dimension to
-    128 lanes, so the column layout's (n, k<=16) blocks are physically
-    128/k times their data — every axpy/dot in `cg_solve_multi` moves
-    16x the bytes at k=8.  With the RHS index on the second-minor axis
-    the padding granularity is 8 rows (free at k=8), and row-layout
-    SpMM kernels (ops.spmv.bdia_spmm_rows) keep the one-operator-pass
-    amortization without any k-minor intermediate.  Semantics per row
-    match ``cg_solve_multi`` per column (freezing, breakdowns,
-    ||r_j|| <= tau·||b_j||).
+    The row layout keeps each RHS contiguous; row-layout SpMMs
+    (ops.spmv.bdia_spmm_rows) keep the one-operator-pass amortization.
+    Semantics per row match ``cg_solve_multi`` per column (freezing,
+    breakdowns, ||r_j|| <= tau·||b_j||).
     """
     return _cg_lockstep(matmat_rows, B, maxiter=maxiter, tau=tau,
                         precond=precond,
                         dot=lambda a, c: jnp.sum(a * c, axis=1),
                         bc=lambda s: s[:, None], n_rhs=B.shape[0])
-
-
-def cg_solve_multi_tiles(matmat_tiles: Callable, B4: jax.Array, *,
-                         maxiter: int = 100, tau: float = 1e-8,
-                         precond: Optional[Callable] = None):
-    """Lockstep multi-RHS CG with the WHOLE Krylov state resident in the
-    BDIA kernel's (n_tiles+2, b, k, tile) layout (ops.spmv.
-    bdia_rows_to_tiles): no per-iteration layout moves at all — the
-    pad/transpose boundary of the rows layout is 7.2 of 8.1 ms/iteration
-    at k=8, n=2.1M where the kernel itself is ~0.9 ms.  ``matmat_tiles``
-    and ``precond`` map the 4-D layout to itself (ops.spmv.
-    bdia_spmm_tiles); the halo tiles and alignment pad are zero in B4
-    and stay zero through every update, so per-RHS dots are exact."""
-    return _cg_lockstep(matmat_tiles, B4, maxiter=maxiter, tau=tau,
-                        precond=precond,
-                        dot=lambda a, c: jnp.sum(a * c, axis=(0, 1, 3)),
-                        bc=lambda s: s[None, None, :, None],
-                        n_rhs=B4.shape[2])
 
 
 def _cg_lockstep(matmat: Callable, B: jax.Array, *, maxiter: int,
@@ -395,9 +373,8 @@ def cg_lockstep_rr(matmat: Callable, B_hi: jax.Array, *, mm_hi: Callable,
     Layout-generic exactly like ``_cg_lockstep``: ``dot``/``bc`` reduce
     and broadcast over the layout; ``matmat``/``precond`` map the f32
     layout to itself; ``mm_hi`` maps the f64 layout to itself (the
-    layout-resident f64 oracle — for BDIA tiles that is one
-    tiles→rows→SpMM→tiles round trip per replacement, amortized over
-    ``replace_every`` kernel-resident iterations).  Dots are f64-cast
+    layout-resident f64 oracle, one pass per replacement, amortized over
+    ``replace_every`` iterations).  Dots are f64-cast
     (hi-dots; see cg_solve_rr).  Convergence is declared ONLY on
     replaced (true) residuals; a column whose replaced residual comes
     back 16× worse than its best freezes with StopReason.STALL
@@ -524,7 +501,7 @@ def cg_solve_rr(matvec: Callable, b_hi: jax.Array, *, mv_hi: Callable,
     reference PCGSolver.py:109-138).  Residual replacement (Van der
     Vorst & Ye 2000) removes the restarts: every ``replace_every`` steps
     the recurrence residual is REPLACED by the true residual
-    b_hi − A₆₄·x₆₄, computed in (emulated) f64 against the f64-accumulated
+    b_hi − A₆₄·x₆₄, computed in f64 against the f64-accumulated
     solution, while the search direction p — and with it the whole
     Krylov history — carries on.  Between replacements the drift is
     ~eps32·‖r_window_start‖, i.e. harmless as long as a window reduces
@@ -542,8 +519,8 @@ def cg_solve_rr(matvec: Callable, b_hi: jax.Array, *, mv_hi: Callable,
     residual is still accurate relative to the window's drift.
 
     Arguments: ``matvec``/``precond`` run in f32 (the fast kernels);
-    ``mv_hi`` is the f64 operator apply (``ops.spmv.ell_spmv_f64_
-    splitgather`` or the gather-free DIA f64 path); ``b_hi`` is the f64
+    ``mv_hi`` is the f64 operator apply (``ops.spmv.ell_spmv_f64`` or
+    the gather-free DIA f64 path); ``b_hi`` is the f64
     right-hand side (an outer residual scaled to O(1)).  Returns
     ``(x64, KrylovState, None)``.
 
@@ -558,14 +535,14 @@ def cg_solve_rr(matvec: Callable, b_hi: jax.Array, *, mv_hi: Callable,
     one-directional-GS AMG V-cycles), where PCG stops being a descent
     method once the residual reaches the f32 noise floor.
 
-    ``hi_matvec=True`` runs the RECURRENCE matvec in (emulated) f64 too
+    ``hi_matvec=True`` runs the RECURRENCE matvec in f64 too
     — only the preconditioner stays f32.  Diagnosis (round 3): the f32
     recurrence matvec, not the f32 preconditioner, costs the iteration
     inflation over f64 CG (DH-15 + IC: 39 vs 28 its with f32 Ap; 28
     with exact Ap and the same f32 preconditioner) AND fills the final
     residual with low-mode content that inflates the solution error
-    ~20× at equal residual norm.  An emulated-f64 SpMV costs ~2× the
-    f32 one — the right trade whenever a preconditioner makes
+    ~20× at equal residual norm.  An f64 SpMV moves ~2× the bytes of
+    the f32 one — the right trade whenever a preconditioner makes
     iterations few (the factory's mixed route enables it for every
     preconditioned solve); unpreconditioned long recurrences keep the
     f32 default.
@@ -574,7 +551,7 @@ def cg_solve_rr(matvec: Callable, b_hi: jax.Array, *, mv_hi: Callable,
         # f32 dot products carry ~sqrt(n)·eps32 accumulation error — enough
         # to perturb alpha/beta and visibly degrade conjugacy (measured:
         # +9 its on DH-15).  Casting the f32 values to f64 and reducing in
-        # f64 is elementwise-cheap on TPU and restores f64-CG iteration
+        # f64 (cheap elementwise work next to the SpMV) restores f64-CG iteration
         # counts.
         dot = lambda a, c: jnp.sum(a.astype(jnp.float64)
                                    * c.astype(jnp.float64))
@@ -712,12 +689,12 @@ def gmres_solve_multi(matvec: Callable, B: jax.Array, *,
     (X, KrylovState-of-vectors, None) with per-column iteration counts,
     implicit residuals and stop reasons.
 
-    TPU rationale (same as cg_solve_multi): each lockstep step makes ONE
+    Rationale (same as cg_solve_multi): each lockstep step makes ONE
     pass over the operator for all columns — ``matvec`` is an SpMM
     ``(n, k_rhs) -> (n, k_rhs)`` (e.g. ``lambda V: ops.matmat(A, V)``) —
     k× the arithmetic intensity of k sequential solves on the
     bandwidth-bound SpMV, and the MGS projections/updates run as
-    column-batched einsums on the MXU.  Converged columns freeze their
+    column-batched einsums.  Converged columns freeze their
     Hessenberg/Givens/rhs state (their basis slots keep advancing but are
     masked out of the solution by the per-column step count), so mixed
     convergence speeds cost no extra numerics.
@@ -928,8 +905,8 @@ def gmres_solve(matvec: Callable, b: jax.Array, x0: Optional[jax.Array] = None,
 
     ``orthog``: "mgs" — modified Gram-Schmidt, sequential dots (parity with
     GMRESSolver.py:110-112); "cgs2" — classical Gram-Schmidt with
-    reorthogonalization: two (m+1, n)-matrix products on the MXU per
-    iteration and a single all-reduce when sharded — the TPU-fast choice
+    reorthogonalization: two (m+1, n)-matrix products per
+    iteration and a single all-reduce when sharded — the accelerator choice
     with MGS-grade stability.
 
     ``flexible=True`` → FGMRES (Saad 1993): the preconditioned vectors
@@ -974,13 +951,13 @@ def gmres_solve(matvec: Callable, b: jax.Array, x0: Optional[jax.Array] = None,
         def bs_body(i, y):
             j = m - 1 - i  # j from m-1 down to 0
             active = j < k
-            s = c.g[j] - jnp.dot(c.H[j, :], y)
+            s = c.g[j] - jnp.dot(c.H[j, :], y, precision=_HI)
             yj = jnp.where(active, s / jnp.where(c.H[j, j] != 0, c.H[j, j], 1.0), 0.0)
             return y.at[j].set(yj)
         y = jax.lax.fori_loop(0, m, bs_body, jnp.zeros((m,), dtype=dtype))
-        # HIGHEST precision: forming x from the basis at TPU's default
-        # bf16 matmul precision caps the attainable true residual and
-        # trips TRUE_RESID_MISMATCH at tolerances mgs reaches fine
+        # HIGHEST precision: forming x from the basis at a reduced
+        # matmul precision caps the attainable true residual and trips
+        # TRUE_RESID_MISMATCH at tolerances mgs reaches fine
         if flexible:
             # FGMRES: x = x0 + Z y (Z already preconditioned)
             return c.x + jnp.einsum("kn,k->n", c.Z, y, precision=_HI)

@@ -2,7 +2,7 @@
 
 The reference ships a broken/dead version of this (Linear/LinearOperator.py
 — missing imports, undefined vars, not exported; SURVEY §7.3).  This is the
-working TPU-native equivalent: operators are closures over device state, so
+working equivalent: operators are closures over device state, so
 any composition remains jittable; ``inverse`` defers to a solver factory at
 apply time (the reference's InverseOp intent, LinearOperator.py:105-119).
 """

@@ -5,10 +5,10 @@ Capability parity with the reference's two-sided preconditioner interface
 left-only / right-only / identity variants) and the deferred factory
 ``PreconditionerType.form(A)`` (PreconditionerType.py:4-19).
 
-TPU redesign: a ``Preconditioner`` is a pair of jittable closures over
+Device design: a ``Preconditioner`` is a pair of jittable closures over
 device state; ``form`` runs the host setup phase (factorization, spectral
 estimation) and returns device-resident apply functions.  Matrix-free
-TPU-idiomatic preconditioners (Jacobi, polynomial/Chebyshev) live here;
+preconditioners (Jacobi, polynomial/Chebyshev) live here;
 incomplete factorizations are in ``ilu.py``; AMG in ``amg.py``.
 """
 from __future__ import annotations
@@ -104,7 +104,7 @@ class JacobiPreconditionerType(PreconditionerType):
 
 
 class ChebyshevPreconditionerType(PreconditionerType):
-    """Chebyshev polynomial preconditioner — the TPU-idiomatic smoother:
+    """Chebyshev polynomial preconditioner — the matvec-only smoother:
     SpMV-only (no triangular solves), fixed-degree, fully jittable.
 
     Approximates A^{-1} on the eigenvalue interval

@@ -3,7 +3,7 @@
 The reference ships a broken NewtonKrylov module (Nonlinear/NewtonKrylov.py
 imports nonexistent modules; SURVEY §2.2) whose intent was a self-contained
 Newton-GMRES with total-iteration counting and adaptive tolerances.  This is
-the TPU-native realization, and goes further than the reference could:
+the device realization, and goes further than the reference could:
 
 * the Jacobian is never formed — J(x)·v comes from ``jax.jvp`` (exact
   forward-mode AD of the residual function);

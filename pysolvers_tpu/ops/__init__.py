@@ -1,6 +1,3 @@
-from .spmv import matvec, matmat, ell_spmv_xla, dia_spmv_pallas, dia_spmv_xla
+from .spmv import matvec, matmat, ell_spmv_xla, dia_spmv_xla
 
-__all__ = ["matvec", "matmat", "ell_spmv_xla", "dia_spmv_pallas",
-           "dia_spmv_xla"]
-from .spmv import prep_operator
-__all__.append("prep_operator")
+__all__ = ["matvec", "matmat", "ell_spmv_xla", "dia_spmv_xla"]

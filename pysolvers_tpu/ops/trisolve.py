@@ -4,7 +4,7 @@ Replaces the reference's SuperLU triangular-solve delegation
 (ILUTPreconditioner.py:67,78 ``.solve()``; ICPreconditioner.py:61-63
 ``spsolve_triangular``).
 
-TPU design: the dependency DAG of a triangular factor is levelized at setup
+Device design: the dependency DAG of a triangular factor is levelized at setup
 (host); rows within a level are independent and solved as one vectorized
 step.  The solve is a ``lax.scan`` over a static (n_levels, max_level_width)
 row schedule — static shapes, no data-dependent control flow, jit/grad safe.

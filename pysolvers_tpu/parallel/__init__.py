@@ -6,13 +6,6 @@ from .spmv import (ShardedDia, ShardedEll, ShardedEllHalo, shard_dia,
 from .precond import (BlockJacobiILU, build_block_jacobi_ilu,
                       block_jacobi_apply,
                       BlockJacobiILUPreconditionerType)
-# The 2-D (pr x pc) ELL partition (spmv2d.py) was RETIRED in round 5:
-# its shard-local ELL gather measures 39x the DIA kernel on the real
-# TPU chip (single-chip probe, our_results/ell2d_decision_r5.jsonl) —
-# intrinsic to gather-based local formats on this backend, not the CPU
-# artifact the r4 decomposition hypothesized.  The 1-D band-slab
-# ppermute layout (ShardedDia / ShardedEllHalo) is the TPU-viable
-# distribution for banded operators.
 
 __all__ = [
     "make_mesh", "row_sharding", "replicated", "ROW_AXIS",

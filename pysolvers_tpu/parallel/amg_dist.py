@@ -43,17 +43,11 @@ GSPMD resharding surprises between levels.  Reference analog: the
 V-cycle recursion this policy wraps (VCycleManager.py:31-62); the
 reference itself has no distribution anywhere (SURVEY §2.3).
 
-Local-format caveat (measured round 5): the shard-local operators here
-are generic local-id ELL slabs (`jnp.take` gathers) because SA coarse
-operators/transfers are not banded in general.  On the real TPU chip an
-ELL gather runs ~39x slower than the DIA shift-FMA kernel
-(our_results/ell2d_decision_r5.jsonl) — on a real slice the sharded
-levels' local compute should be re-packed per shard into the BWS
-windowed kernel (ops/bws_spmv.py), which is exactly the single-chip
-answer to the same problem.  The communication structure (the point of
-this module: static per-cycle collective budget, one gather at the
-crossover) is format-independent and is what the committed CPU-mesh
-weak-scaling rows measure.
+The shard-local operators here are generic local-id ELL slabs
+(`jnp.take` gathers) because SA coarse operators/transfers are not
+banded in general.  The communication structure (the point of this
+module: static per-cycle collective budget, one gather at the
+crossover) is format-independent.
 """
 from __future__ import annotations
 
@@ -72,11 +66,8 @@ except ImportError:  # older jax
 
 
 def shard_map(f, **kw):
-    """shard_map with check_vma disabled: the replicated tail may run
-    Pallas kernels (interpret mode on CPU) whose out_shape carries no
-    varying-mesh-axes annotation — newer JAX rejects that under the
-    default check; the cycle's specs are all explicit so the check adds
-    nothing."""
+    """shard_map with check_vma disabled: the cycle's specs are all
+    explicit, so the varying-mesh-axes check adds nothing."""
     try:
         return _shard_map(f, check_vma=False, **kw)
     except TypeError:       # older jax: no check_vma kwarg
@@ -237,7 +228,8 @@ def build_partition_hierarchy(A_host: HostCSR, mesh: Mesh, *,
                                  sum_duplicates=False)
         A_f = filtered_matrix(A_cur, tol)
         P_sm = smooth_prolongator(A_f, P_hat, omega)
-        R_sm = make_restriction(P_sm)
+        # R = Pᵀ unnormalized: keeps A_c symmetric (amg.sa_coarsen)
+        R_sm = make_restriction(P_sm, normalize=False)
         A_c = R_sm.matmat(A_cur.matmat(P_sm))
         # unused coarse slots (slab padding) must carry a unit diagonal:
         # the tail's dense inverse and smoother diagonals would otherwise

@@ -157,6 +157,7 @@ def block_jacobi_sharded(A: ShardedBdia):
         Binv_pl, NamedSharding(A.mesh, P(None, None, ROW_AXIS)))
 
     def apply(state, v):
-        return jnp.einsum("pqi,qi->pi", state.astype(v.dtype), v)
+        return jnp.einsum("pqi,qi->pi", state.astype(v.dtype), v,
+                          precision=jax.lax.Precision.HIGHEST)
 
     return apply, Binv_pl

@@ -2,16 +2,15 @@
 
 The reference is single-process (SURVEY §2.3 — no MPI/NCCL/Gloo anywhere);
 this module is the framework's multi-host story: one ``initialize()`` call
-turns an N-process launch (one process per host, TPU pod slice or CPU/gloo)
-into a global device mesh that the existing 1-D row-partition layer
+turns an N-process launch (one process per host, GPU or CPU/gloo) into a
+global device mesh that the existing 1-D row-partition layer
 (parallel/mesh.py, parallel/spmv.py) runs over unchanged — GSPMD inserts
-DCN/ICI collectives from the same shardings.
+the collectives from the same shardings.
 
 Launch pattern (same script on every host):
 
     import pysolvers_tpu.parallel.distributed as dist
-    dist.initialize()                    # TPU pods: args auto-detected
-    # CPU/gloo: dist.initialize("host0:9733", num_processes=4, process_id=i)
+    dist.initialize("host0:9733", num_processes=4, process_id=i)
     mesh = dist.global_mesh()            # all devices across all processes
     A = shard_dia(H, mesh); ...          # identical single-host code
 
@@ -36,9 +35,8 @@ def initialize(coordinator_address: Optional[str] = None,
                local_device_ids=None) -> None:
     """Initialize the multi-process runtime (idempotent).
 
-    On TPU pod slices all arguments are auto-detected by jax; on CPU (or
-    explicit launches) pass them or set PST_COORDINATOR /
-    PST_NUM_PROCESSES / PST_PROCESS_ID.
+    Pass the arguments or set PST_COORDINATOR / PST_NUM_PROCESSES /
+    PST_PROCESS_ID (nothing detects a cluster automatically).
     """
     global _initialized
     if _initialized:

@@ -4,7 +4,8 @@ The domain-appropriate parallelism for sparse solvers (SURVEY §2.3): rows
 of the matrix and entries of every vector are sharded over a 1-D mesh; SpMV
 needs halo exchange of the source vector; dot products and norms all-reduce.
 The reference is single-process (no distribution anywhere); this module is
-the TPU-native scaling layer that replaces nothing and adds the pod story.
+the scaling layer that replaces nothing and adds the multi-device story.
+A flat 1-D mesh suits devices joined all to all (NVLink).
 """
 from __future__ import annotations
 

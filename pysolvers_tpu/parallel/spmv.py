@@ -209,8 +209,8 @@ class ShardedEllHalo:
     """Row-slab ELL with LOCAL column ids into [halo | slab | halo].
 
     Requires bandwidth <= slab (one neighbor hop each way).  Unstructured
-    matrices get there via RCM ordering (sparse/bws.BwsMatrix._rcm_perm);
-    the caller solves the permuted system, like the BWS single-chip path.
+    matrices get there via RCM ordering (HostCSR.rcm_perm);
+    the caller solves the permuted system.
     """
 
     data: jax.Array        # (n_pad, k) rows sharded

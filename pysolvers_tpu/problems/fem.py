@@ -5,7 +5,7 @@ The reference's graded problem family is the Debye-Hückel FEM suite
 matrices, but capped at n=16,641 (lev 15).  These generators extend that
 capability to arbitrary n so the SA-AMG path (the reference's production
 multigrid, SmoothedAggregation.py:185-205) can be exercised at the scales
-the TPU build targets (n >= 1e6).
+the device solvers target (n >= 1e6).
 
 ``fem_poisson_2d_unstructured`` assembles a genuine P1 finite-element
 stiffness matrix on a perturbed triangulation: grid points are jittered,
@@ -37,8 +37,8 @@ def fem_poisson_2d_unstructured(m: int, seed: int = 0, jitter: float = 0.22,
 
     ``shuffle``: randomly permute the unknown numbering, so the returned
     matrix carries no grid ordering at all (callers that want bandwidth
-    back run RCM, e.g. HostCSR.permute_symmetric with a
-    BwsMatrix._rcm_perm ordering — the realistic unstructured pipeline).
+    back run RCM, e.g. ``H.permute_symmetric(H.rcm_perm())`` — the
+    realistic unstructured pipeline).
 
     Returns ``HostCSR`` (SPD).
     """

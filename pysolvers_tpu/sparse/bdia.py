@@ -1,27 +1,26 @@
-"""Block-DIA: the BSR-class container, TPU-shaped.
+"""Block-DIA: the BSR-class container for block-banded operators.
 
 The reference (scipy CSR everywhere, e.g. ``mvmult``
 IterativeLinearSolver.py:94-106) treats multi-dof-per-node FEM matrices
 as scalar sparse; scipy's own BSR answers that on CPU with small dense
-blocks.  The TPU-native equivalent is NOT a block-CSR (block gathers
-land on XLA's scalar path) but the DIA idea lifted to blocks: an
+blocks.  The device equivalent here is NOT a block-CSR (block gathers)
+but the DIA idea lifted to blocks: an
 RCM-ordered multi-dof discretization is **block-banded**, so store the
 dense b×b blocks along block-diagonals and run SpMV as gather-free
-shift-and-FMA — zero gathers, exactly like the scalar DIA kernel with
+shift-and-FMA — zero gathers, exactly like the scalar DIA SpMV with
 the block mixing fused in.
 
 Layout — PLANAR (dof-major) vector ordering: the solve-side vectors hold
 all dof-0 values first, then dof-1, ... (x_planar[p·nb + i] =
 x[i·b + p]).  In planar order each (p, q) plane of a block-diagonal is a
 contiguous nb-length stream FMA'd against a SHIFTED nb-segment of x —
-lane-aligned, transpose-free (the first BDIA cut kept node-major vectors
-and paid two full-vector transposes per matvec: measured 5.9 vs 47.5
-Gnnz/s for identical arithmetic).  Blocks are stored kernel-ready as
+contiguous and transpose-free (node-major vectors would pay two
+full-vector transposes per matvec for identical arithmetic).  Blocks are stored kernel-ready as
 ``planes[d·b + q, p, i] = A_block[boffs[d]][p, q] at block-row i`` so the
-Pallas kernel reads contiguous (b, tile) slabs.
+SpMV reads contiguous (b, nb) slabs.
 
 Conversion helpers ``to_planar``/``from_planar`` reorder once per solve,
-not per matvec (the same boundary contract as BwsMatrix's RCM packing).
+not per matvec.
 """
 from __future__ import annotations
 
@@ -80,7 +79,7 @@ class BdiaMatrix:
 
     @staticmethod
     def from_host_csr(A: HostCSR, b: int, dtype=None,
-                      row_tile: int = None) -> "BdiaMatrix":
+                      row_tile: int = 8) -> "BdiaMatrix":
         """Pack a host CSR (node-major, n divisible by ``b``) into
         planar block-DIA.  Blocks are dense in storage (absent entries
         are zeros).  The layout plan (block offsets + per-nnz scatter
@@ -93,12 +92,6 @@ class BdiaMatrix:
             raise ValueError(f"n={n} not divisible by block size b={b}")
         nb = n // b
         dtype = dtype or A.data.dtype
-        if row_tile is None:
-            # align to the Pallas kernel's tile grid so its in-graph
-            # alignment pad is a no-op — with planes as a jit argument
-            # that pad copies the whole storage every matvec (same 2x
-            # tax as DiaMatrix; sparse/device.py)
-            row_tile = 16384 if nb > 16384 else 128
         nb_pad = _round_up(max(nb, 1), row_tile)
 
         # nb_pad is baked into the cached flat scatter targets — it must
@@ -236,7 +229,7 @@ def detect_block_size(A: HostCSR, candidates=(8, 7, 6, 5, 4, 3, 2),
     gates.
 
     Feeds ``solve()``'s auto-conversion (solve.py): CSR holders reach
-    the kernel-resident BDIA lockstep route without hand-building a
+    the BDIA lockstep route without hand-building a
     BdiaMatrix (reference analog: ``mvmult``'s dispatch-on-type idea,
     IterativeLinearSolver.py:94-106).
     """

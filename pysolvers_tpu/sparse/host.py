@@ -112,13 +112,25 @@ class HostCSR:
         d[rows[on_diag]] = vals[on_diag]
         return d
 
+    def rcm_perm(self):
+        """Reverse Cuthill-McKee permutation of the symmetrized adjacency
+        (bandwidth reduction; feed it to ``permute_symmetric``), or None
+        when the native library is unavailable."""
+        from ..utils import native
+        p = native.sym_rcm(self.indptr, self.indices, self.shape[0])
+        if p is None:
+            # fallback: symmetrize on host (two numpy lexsorts), plain RCM
+            Hs = self.add(self.transpose())
+            p = native.rcm(Hs.indptr, Hs.indices, self.shape[0])
+        return np.asarray(p, dtype=np.int64) if p is not None else None
+
     def permute_symmetric(self, perm: np.ndarray) -> "HostCSR":
         """P·A·Pᵀ for a row/column permutation ``perm`` (new row i is old
         row perm[i]).  The reorder plan depends only on the sparsity
         structure + perm, so it is cached on a structure hash and a
         same-structure re-permute (Newton steps, repeated setups) is a
-        single value gather — the symbolic/numeric split, matching
-        BwsMatrix.host_pack.  Index arrays are treated as immutable."""
+        single value gather — the symbolic/numeric split.  Index arrays
+        are treated as immutable."""
         perm = np.asarray(perm, dtype=np.int64)
         key = (hash(self.indptr.tobytes()), hash(self.indices.tobytes()),
                self.nnz, self.shape, hash(perm.tobytes()))

@@ -1,13 +1,13 @@
 """Profiling and performance accounting.
 
-Replaces the reference's wall-clock-only Timer instrumentation (SURVEY §5)
-with TPU-grade observability:
+Replaces the reference's wall-clock-only Timer instrumentation (SURVEY §5):
 
 * ``trace(...)`` — context manager around ``jax.profiler`` producing a
   TensorBoard-loadable trace directory.
-* ``SpeedOfLight`` — per-chip roofline model: given a kernel's bytes/flops,
-  report achieved fraction of HBM bandwidth / peak FLOPs.  Chip table holds
-  the TPU generations this framework targets.
+* ``SpeedOfLight`` — roofline model against a MEASURED peak (e.g. a
+  triad over the same bytes in the same run): given a kernel's bytes,
+  report the achieved fraction.  There is no table of nominal peaks; a
+  missing peak is an error, never a default.
 * ``measure(fn, *args)`` — robust wall-clock of a jitted callable with
   block_until_ready, warmup, and min-over-repeats.
 """
@@ -21,52 +21,29 @@ from typing import Callable, Optional
 import jax
 
 
-@dataclasses.dataclass(frozen=True)
-class ChipSpec:
-    name: str
-    hbm_gbps: float          # HBM bandwidth, GB/s
-    f32_tflops: float        # peak dense f32 TFLOP/s (MXU)
-    bf16_tflops: float
-    vmem_mb: float
-
-
-CHIPS = {
-    "v4": ChipSpec("v4", 1228.0, 137.5, 275.0, 16.0),
-    "v5e": ChipSpec("v5e", 819.0, 98.0, 197.0, 16.0),
-    "v5p": ChipSpec("v5p", 2765.0, 229.5, 459.0, 16.0),
-    "v6e": ChipSpec("v6e", 1640.0, 459.0, 918.0, 16.0),
-}
-
-
-def current_chip() -> ChipSpec:
-    try:
-        kind = jax.devices()[0].device_kind.lower()
-    except Exception:
-        return CHIPS["v5e"]
-    for key, spec in CHIPS.items():
-        if key in kind.replace(" ", "").replace("tpu", ""):
-            return spec
-    return CHIPS["v5e"]
-
-
 @dataclasses.dataclass
 class SpeedOfLight:
-    """Roofline accounting for one kernel invocation."""
+    """Roofline accounting for one kernel invocation.
+
+    ``peak_gbps``: a measured bandwidth peak in GB/s (1e9 bytes/s).  The
+    methods that need it raise when it was not given.
+    """
 
     bytes_moved: float
     flops: float = 0.0
-    chip: Optional[ChipSpec] = None
+    peak_gbps: Optional[float] = None
 
-    def bound(self) -> str:
-        c = self.chip or current_chip()
-        t_mem = self.bytes_moved / (c.hbm_gbps * 1e9)
-        t_flop = self.flops / (c.f32_tflops * 1e12)
-        return "memory" if t_mem >= t_flop else "compute"
+    def _peak(self) -> float:
+        if not self.peak_gbps or self.peak_gbps <= 0:
+            raise ValueError("SpeedOfLight needs a measured peak_gbps "
+                             "(e.g. a triad over the same bytes)")
+        return self.peak_gbps
 
     def sol_seconds(self) -> float:
-        c = self.chip or current_chip()
-        return max(self.bytes_moved / (c.hbm_gbps * 1e9),
-                   self.flops / (c.f32_tflops * 1e12))
+        return self.bytes_moved / (self._peak() * 1e9)
+
+    def achieved_gbps(self, measured_s: float) -> float:
+        return self.bytes_moved / measured_s / 1e9
 
     def achieved_fraction(self, measured_s: float) -> float:
         return self.sol_seconds() / measured_s if measured_s > 0 else 0.0
@@ -88,7 +65,7 @@ def measure(fn: Callable, *args, warmup: int = 2, repeats: int = 20,
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/pst_trace"):
+def trace(log_dir: str):
     """jax.profiler trace context (open in TensorBoard / xprof)."""
     jax.profiler.start_trace(log_dir)
     try:
@@ -98,12 +75,15 @@ def trace(log_dir: str = "/tmp/pst_trace"):
 
 
 def spmv_sol(nnz: int, n: int, fmt: str, dtype_bytes: int = 4,
-             n_diags: int = 0) -> SpeedOfLight:
-    """Speed-of-light model for one SpMV by storage format."""
+             n_diags: int = 0, peak_gbps: Optional[float] = None
+             ) -> SpeedOfLight:
+    """Stream-model bytes of one SpMV by storage format: every stored
+    value once, every index once, x and y once each."""
     if fmt == "dia":
         bytes_moved = (n_diags * n + 2 * n) * dtype_bytes
     elif fmt == "ell":
         bytes_moved = nnz * (dtype_bytes + 4) + 2 * n * dtype_bytes
     else:  # csr
         bytes_moved = nnz * (dtype_bytes + 4) + (3 * n) * dtype_bytes
-    return SpeedOfLight(bytes_moved=float(bytes_moved), flops=2.0 * nnz)
+    return SpeedOfLight(bytes_moved=float(bytes_moved), flops=2.0 * nnz,
+                        peak_gbps=peak_gbps)

@@ -2,7 +2,7 @@
 
 Capability parity with the reference's external PyTimer package (used in
 AMG setup, SmoothedAggregation.py:65-66 etc., reported via Timer.report()
-in examples/PCGExample_AMG.py:34).  TPU addition: optional block-until-ready
+in examples/PCGExample_AMG.py:34).  Addition: optional block-until-ready
 on jax arrays so device async dispatch doesn't fake timings.
 """
 from __future__ import annotations

@@ -1,7 +1,7 @@
 import os
 
 # Tests run on a virtual 8-device CPU mesh so multi-chip sharding behavior is
-# exercised without TPU hardware; f64 enabled for numerical parity oracles.
+# exercised without a multi-device machine; f64 enabled for numerical parity oracles.
 os.environ["JAX_PLATFORMS"] = "cpu"
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
@@ -12,5 +12,6 @@ import jax  # noqa: E402
 
 jax.config.update("jax_enable_x64", True)
 # persistent compile cache: repeated suite runs skip XLA compilation
-jax.config.update("jax_compilation_cache_dir", "/tmp/pst_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+from pysolvers_tpu.utils.platform import enable_persistent_cache  # noqa: E402
+
+enable_persistent_cache()

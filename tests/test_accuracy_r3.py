@@ -21,25 +21,24 @@ from pysolvers_tpu.linear.ilu import (ICPreconditionerType,
                                       _SCALE_CACHE, _AUTO_BUDGET_FRAC)
 from pysolvers_tpu.linear.krylov import cg_solve_rr
 from pysolvers_tpu.linear.refine import ir_solve_dd
-from pysolvers_tpu.sparse.bws import BwsMatrix
 from pysolvers_tpu.sparse.host import HostCSR
 
 
 def _dh(lev=10):
     H, x_exact, b = pst.problems.dh_test_problem(lev)
-    item_A, asm_A, perm = BwsMatrix.host_pack(H, dtype=np.float32)
-    perm = np.asarray(perm)
+    perm = H.rcm_perm()
     Hp = H.permute_symmetric(perm)
     Hp32 = HostCSR(Hp.indptr, Hp.indices, Hp.data.astype(np.float32),
                    Hp.shape)
-    return H, x_exact, b, item_A, asm_A, perm, Hp, Hp32
+    A32 = pst.EllMatrix.from_host_csr(Hp32, dtype=np.float32)
+    return H, x_exact, b, A32, perm, Hp, Hp32
 
 
 class TestAutoDropScale:
     def test_auto_strengthens_vs_seed(self):
         # the budget search runs only on the block-trisolve path, where
         # retained fill is bandwidth-free (fill_is_free)
-        _, _, _, _, _, _, _, Hp32 = _dh(10)
+        _, _, _, _, _, _, Hp32 = _dh(10)
         auto = ICPreconditionerType(
             1e-3, 15.0, trisolve_mode="block")._factor(Hp32)
         seed = ICPreconditionerType(1e-3, 15.0, drop_scale=0.1)._factor(Hp32)
@@ -48,7 +47,7 @@ class TestAutoDropScale:
         assert 2 * auto.nnz <= 2.0 * 15.0 * Hp32.nnz + 2 * Hp32.shape[0]
 
     def test_resolved_scale_is_cached(self):
-        _, _, _, _, _, _, _, Hp32 = _dh(10)
+        _, _, _, _, _, _, Hp32 = _dh(10)
         _SCALE_CACHE.clear()
         pt = ICPreconditionerType(1e-3, 15.0, trisolve_mode="block")
         pt._factor(Hp32)
@@ -62,7 +61,7 @@ class TestAutoDropScale:
     def test_level_mode_skips_the_budget_search(self):
         # level/sweep applies scale with nnz — auto keeps the seed scale
         # there (measured: the fuller factor made CPU solves 1.5x slower)
-        _, _, _, _, _, _, _, Hp32 = _dh(10)
+        _, _, _, _, _, _, Hp32 = _dh(10)
         lvl = ICPreconditionerType(
             1e-3, 15.0, trisolve_mode="level")._factor(Hp32)
         seed = ICPreconditionerType(
@@ -71,13 +70,13 @@ class TestAutoDropScale:
         assert lvl.nnz == seed.nnz
 
     def test_float_scale_respected(self):
-        _, _, _, _, _, _, _, Hp32 = _dh(10)
+        _, _, _, _, _, _, Hp32 = _dh(10)
         a = ILUTPreconditionerType(1e-3, 15.0, drop_scale=1.0)._factor(Hp32)
         c = ILUTPreconditionerType(1e-3, 15.0, drop_scale=0.01)._factor(Hp32)
         assert c[0].nnz + c[1].nnz > a[0].nnz + a[1].nnz
 
     def test_budget_frac_reached_on_dh(self):
-        _, _, _, _, _, _, _, Hp32 = _dh(13)
+        _, _, _, _, _, _, Hp32 = _dh(13)
         L, U = ILUTPreconditionerType(
             1e-3, 15.0, trisolve_mode="block")._factor(Hp32)
         total = L.nnz + U.nnz
@@ -85,26 +84,26 @@ class TestAutoDropScale:
         assert total >= 0.5 * target   # the one-shot jump lands near it
 
 
-def _ic_state(Hp32, item_A, asm_A):
+def _ic_state(Hp32):
     pt = ICPreconditionerType(1e-3, 15, trisolve_mode="block")
     pp = pt.prep(Hp32)
-    outs = fused_build([item_A, pp[0]])
-    return asm_A(outs[0]), pp[1](outs[1])
+    (out,) = fused_build([pp[0]])
+    return pp[1](out)
 
 
 class TestHiMatvecRR:
     def test_f64_grade_iterations_and_true_convergence(self):
-        H, x_exact, b, item_A, asm_A, perm, Hp, Hp32 = _dh(11)
-        A32, M = _ic_state(Hp32, item_A, asm_A)
+        H, x_exact, b, A32, perm, Hp, Hp32 = _dh(11)
+        M = _ic_state(Hp32)
         A64 = pst.EllMatrix.from_host_csr(Hp, dtype=np.float64)
-        from pysolvers_tpu.ops.spmv import ell_spmv_f64_splitgather
+        from pysolvers_tpu.ops.spmv import ell_spmv_f64
         from pysolvers_tpu.ops import matvec as op_matvec
         bp = b[perm].astype(np.float64)
         bn = np.linalg.norm(bp)
         apply_fn, state = M.traced
         x, st, _ = cg_solve_rr(
             lambda v: op_matvec(A32, v), jnp.asarray(bp / bn),
-            mv_hi=lambda v: ell_spmv_f64_splitgather(A64, v),
+            mv_hi=lambda v: ell_spmv_f64(A64, v),
             maxiter=200, tau=1e-10,
             precond=lambda v: apply_fn(state, v), hi_matvec=True)
         assert int(st.reason) == 1
@@ -115,8 +114,8 @@ class TestHiMatvecRR:
         assert np.linalg.norm(r) <= 1.2e-10
 
     def test_dd_chain_overshoot_bounds_error(self):
-        H, x_exact, b, item_A, asm_A, perm, Hp, Hp32 = _dh(11)
-        A32, M = _ic_state(Hp32, item_A, asm_A)
+        H, x_exact, b, A32, perm, Hp, Hp32 = _dh(11)
+        M = _ic_state(Hp32)
         A64 = pst.EllMatrix.from_host_csr(Hp, dtype=np.float64)
         bp = b[perm].astype(np.float64)
         iperm = np.empty(len(perm), dtype=np.int64)
@@ -134,11 +133,11 @@ class TestHiMatvecRR:
 
 class TestFGMRES64:
     def test_ilut_gmres_hi_one_pass(self):
-        H, x_exact, b, item_A, asm_A, perm, Hp, Hp32 = _dh(11)
+        H, x_exact, b, A32, perm, Hp, Hp32 = _dh(11)
         pt = ILUTPreconditionerType(1e-3, 15, trisolve_mode="block")
         pp = pt.prep(Hp32)
-        outs = fused_build([item_A, pp[0]])
-        A32, M = asm_A(outs[0]), pp[1](outs[1])
+        (out,) = fused_build([pp[0]])
+        M = pp[1](out)
         A64 = pst.EllMatrix.from_host_csr(Hp, dtype=np.float64)
         bp = b[perm].astype(np.float64)
         iperm = np.empty(len(perm), dtype=np.int64)

@@ -139,44 +139,6 @@ class TestAMGSolverShell:
         np.testing.assert_allclose(np.asarray(x), x_exact, atol=1e-6)
 
 
-class TestBwsHierarchy:
-    def test_bws_format_matches_auto(self):
-        """matrix_format='bws' V-cycles agree with the gather-format
-        hierarchy (f32, interpret-mode kernels on CPU)."""
-        import jax
-        import jax.numpy as jnp
-        from pysolvers_tpu.problems import dh_test_problem
-        from pysolvers_tpu.linear.amg import (build_sa_hierarchy,
-                                              build_device_hierarchy,
-                                              v_cycle)
-        H, _, b = dh_test_problem(13)     # n=4225 > bws threshold
-        mlh = build_sa_hierarchy(H, num_levels=2)
-        h_auto = build_device_hierarchy(mlh, smoother="jacobi", nu_pre=2,
-                                        nu_post=2, dtype=np.float32)
-        h_bws = build_device_hierarchy(mlh, smoother="jacobi", nu_pre=2,
-                                       nu_post=2, dtype=np.float32,
-                                       matrix_format="bws")
-        from pysolvers_tpu.sparse.bws import BwsMatrix
-        assert isinstance(h_bws.levels[-1].A_dev, BwsMatrix)
-        assert isinstance(h_bws.levels[-1].P_dev, BwsMatrix)
-        f = jnp.asarray(b.astype(np.float32))
-        x0 = jnp.zeros_like(f)
-        ya = np.asarray(v_cycle(h_auto, f, x0))
-        yb = np.asarray(v_cycle(h_bws, f, x0))
-        np.testing.assert_allclose(yb, ya, rtol=5e-3, atol=5e-3
-                                   * max(abs(ya).max(), 1.0))
-
-    def test_bws_format_requires_f32(self):
-        import pytest as _pytest
-        from pysolvers_tpu.problems import dh_test_problem
-        from pysolvers_tpu.linear.amg import (build_sa_hierarchy,
-                                              build_device_hierarchy)
-        H, _, _ = dh_test_problem(10)
-        mlh = build_sa_hierarchy(H, num_levels=2)
-        with _pytest.raises(ValueError, match="float32"):
-            build_device_hierarchy(mlh, matrix_format="bws")
-
-
 class TestGalerkinSymmetry:
     def test_sa_coarse_operators_symmetric_unstructured(self):
         """R = P^T (unnormalized) must produce SYMMETRIC Galerkin coarse

@@ -171,3 +171,22 @@ class TestCycle:
         z = prec.apply_any(r)
         assert z.shape == r.shape
         assert np.isfinite(np.asarray(z)).all()
+
+
+class TestPartitionGalerkinSymmetry:
+    def test_coarse_level_symmetric_unstructured(self):
+        """R = Pᵀ (unnormalized) in the partition-local hierarchy: the
+        coarse Galerkin operator of an unstructured SPD problem is
+        symmetric to roundoff (a row-normalized restriction leaves it
+        asymmetric at the 10% level on unstructured aggregates)."""
+        from pysolvers_tpu.api import _densify_device
+        from pysolvers_tpu.problems.fem import fem_poisson_2d_unstructured
+        H0 = fem_poisson_2d_unstructured(40, seed=2)
+        H = H0.permute_symmetric(H0.rcm_perm())
+        mesh = make_mesh(4)
+        ph = build_partition_hierarchy(H, mesh, num_levels=2, crossover=8,
+                                       dtype=np.float64)
+        assert len(ph.sharded) == 1
+        Ac = np.asarray(_densify_device(ph.tail.levels[-1].A_dev))
+        asym = np.abs(Ac - Ac.T).max() / np.abs(Ac).max()
+        assert asym < 1e-12, asym

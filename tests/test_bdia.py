@@ -31,15 +31,6 @@ class TestBdia:
         y = np.asarray(Ad.from_planar(bdia_spmv(Ad, xp)))
         np.testing.assert_allclose(y, A.matvec(x), rtol=1e-12, atol=1e-12)
 
-    def test_pallas_kernel_interpret_matches_xla(self):
-        from pysolvers_tpu.ops.spmv import bdia_spmv_pallas
-        A, x = _prob(b=4)
-        Ad = BdiaMatrix.from_host_csr(A, b=4, dtype=np.float32)
-        xp = Ad.to_planar(jnp.asarray(x.astype(np.float32)))
-        y = np.asarray(Ad.from_planar(
-            bdia_spmv_pallas(Ad, xp, interpret=True)))
-        np.testing.assert_allclose(y, A.matvec(x), rtol=2e-5, atol=2e-5)
-
     def test_planar_round_trip(self):
         A, x = _prob(b=3)
         Ad = BdiaMatrix.from_host_csr(A, b=3)

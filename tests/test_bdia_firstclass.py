@@ -193,19 +193,3 @@ class TestBdiaMesh:
         y_one = np.asarray(Ad.from_planar(
             prec.apply_any(Ad.to_planar(jnp.asarray(x)))))
         np.testing.assert_allclose(y_dist, y_one, rtol=1e-6, atol=1e-8)
-
-
-class TestBdiaSpmmPallas:
-    def test_lockstep_spmm_kernel_oracle(self):
-        from pysolvers_tpu.ops.spmv import bdia_spmm_pallas
-        A, _, _ = _prob(m=12, b=3)
-        Ad = BdiaMatrix.from_host_csr(A, b=3, dtype=np.float32)
-        rng = np.random.default_rng(0)
-        for k in (1, 5, 8):
-            X = rng.random((A.shape[0], k)).astype(np.float32)
-            Xp = Ad.to_planar(jnp.asarray(X))
-            Y = np.asarray(Ad.from_planar(
-                bdia_spmm_pallas(Ad, Xp, interpret=True)))
-            Y_ref = np.stack([A.matvec(X[:, j].astype(np.float64))
-                              for j in range(k)], axis=1)
-            assert np.abs(Y - Y_ref).max() < 2e-3   # f32, |A| ~ 1e3

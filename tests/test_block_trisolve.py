@@ -2,7 +2,7 @@
 
 Replaces the reference's SuperLU triangular-solve applications
 (ICPreconditioner.py:61-63, ILUTPreconditioner.py:67,78) with an exact
-dense-block MXU path; these tests pin exactness against the
+dense-block matmul path; these tests pin exactness against the
 level-scheduled solver and iteration-count parity inside PCG.
 """
 import numpy as np
@@ -11,7 +11,6 @@ import pytest
 
 import pysolvers_tpu as pst
 from pysolvers_tpu.sparse.host import HostCSR
-from pysolvers_tpu.sparse.bws import BwsMatrix
 from pysolvers_tpu.linear.ilu import (ict_factor, ilut_factor,
                                       ICPreconditionerType,
                                       ILUTPreconditionerType)
@@ -22,7 +21,7 @@ from pysolvers_tpu.ops.block_trisolve import (build_block_trisolve_plan,
 
 def _rcm_permuted_dh(lev):
     H, x_exact, b = pst.problems.dh_test_problem(lev)
-    perm = BwsMatrix._rcm_perm(H)
+    perm = H.rcm_perm()
     iperm = np.empty_like(perm)
     iperm[perm] = np.arange(len(perm))
     rows, cols, vals = H.to_coo()

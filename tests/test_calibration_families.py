@@ -121,7 +121,7 @@ def _ref_gmres_iters(A, b, apply, tau=1e-10, maxiter=500):
 
 def _our_iters(A, b, method):
     """Inner-iteration count of OUR mixed-precision route with the
-    TPU-representative block trisolve mode (where the fill-budget
+    block trisolve mode (where the fill-budget
     search is active — retained fill is bandwidth-free there)."""
     _SCALE_CACHE.clear()
     control = pst.CommonSolverArgs(maxiter=500, tau=1e-10)
@@ -164,9 +164,8 @@ class TestFamilyInsensitiveCalibration:
         # the round-4 unstructured family (problems/fem.py) — a fourth
         # family the constants were never tuned on
         from pysolvers_tpu.problems.fem import fem_poisson_2d_unstructured
-        from pysolvers_tpu.sparse.bws import BwsMatrix
         A0 = fem_poisson_2d_unstructured(24, seed=5)
-        A = A0.permute_symmetric(BwsMatrix._rcm_perm(A0))
+        A = A0.permute_symmetric(A0.rcm_perm())
         rng = np.random.default_rng(2)
         b = A.matvec(rng.random(A.shape[0]))
         ref = _ref_cg_iters(A, b, _ref_ic_apply(A))

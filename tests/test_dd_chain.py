@@ -1,5 +1,5 @@
 """One-dispatch f64-residual refinement chains (refine.ir_solve_dd +
-ops.spmv.ell_spmv_f64_splitgather) and their factory wiring."""
+ops.spmv.ell_spmv_f64) and their factory wiring."""
 import numpy as np
 import pytest
 
@@ -14,7 +14,7 @@ from pysolvers_tpu.linear.ilu import (ICPreconditionerType,
                                       ILUTPreconditionerType)
 from pysolvers_tpu.problems import dh_test_problem, fd_laplacian_2d
 from pysolvers_tpu.sparse.device import DiaMatrix, EllMatrix
-from pysolvers_tpu.ops.spmv import ell_spmv_f64_splitgather
+from pysolvers_tpu.ops.spmv import ell_spmv_f64
 
 
 class TestSplitGather:
@@ -23,20 +23,21 @@ class TestSplitGather:
         n = H.shape[0]
         A64 = EllMatrix.from_host_csr(H, dtype=np.float64)
         x = np.random.default_rng(0).random(n) * 2.0 - 1.0
-        y = np.asarray(jax.jit(ell_spmv_f64_splitgather)(A64,
+        y = np.asarray(jax.jit(ell_spmv_f64)(A64,
                                                          jnp.asarray(x)))
         err = np.linalg.norm(y - H.matvec(x)) / np.linalg.norm(H.matvec(x))
         # two f32 planes carry x to ~2^-48; products/sums are f64
         assert err < 1e-13
 
     def test_wide_dynamic_range(self):
-        """hi/lo split must stay accurate when components span magnitudes."""
+        """The f64 residual matvec stays accurate when components span
+        magnitudes."""
         H = fd_laplacian_2d(12)
         n = H.shape[0]
         A64 = EllMatrix.from_host_csr(H, dtype=np.float64)
         x = np.random.default_rng(1).random(n) * np.logspace(
             -8, 8, n)
-        y = np.asarray(ell_spmv_f64_splitgather(A64, jnp.asarray(x)))
+        y = np.asarray(ell_spmv_f64(A64, jnp.asarray(x)))
         ref = H.matvec(x)
         assert np.linalg.norm(y - ref) / np.linalg.norm(ref) < 1e-12
 

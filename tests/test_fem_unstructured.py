@@ -2,10 +2,11 @@
 pipeline (VERDICT r3 item 1) at CPU-test scale.
 
 The pipeline under test is exactly benchmarks/unstructured_amg.py's:
-RCM reorder -> host SA setup (C++ SpGEMM) -> BWS device hierarchy ->
+RCM reorder -> host SA setup (C++ SpGEMM) -> ELL device hierarchy ->
 PCG + AMG(mixed) to 1e-10 — on a genuinely unstructured matrix
 (random node numbering, variable connectivity), not a DIA stencil.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -53,9 +54,8 @@ class TestFemGenerator:
 
 class TestUnstructuredSAMG:
     def _pipeline(self, m=40, levels=3):
-        from pysolvers_tpu.sparse.bws import BwsMatrix
         A = fem_poisson_2d_unstructured(m, seed=3)
-        perm = BwsMatrix._rcm_perm(A)
+        perm = A.rcm_perm()
         Ap = A.permute_symmetric(perm)
         rng = np.random.default_rng(7)
         x = rng.normal(size=A.shape[0])
@@ -78,7 +78,7 @@ class TestUnstructuredSAMG:
 
     def test_samg_iteration_count_beats_plain_cg(self):
         # the capability claim at test scale: SA-AMG cuts iterations by
-        # >10x on the unstructured problem (wall-clock is the TPU
+        # >10x on the unstructured problem (wall-clock is the
         # benchmark's job, benchmarks/unstructured_amg.py)
         Ap, _, b = self._pipeline(m=40)
         st_amg = pst.solve(Ap, b, tau=1e-10, maxiter=4000, method="cg",
@@ -88,32 +88,35 @@ class TestUnstructuredSAMG:
         assert st_amg.success and st_cg.success
         assert st_amg.iters * 10 <= st_cg.iters
 
-    def test_bws_hierarchy_levels(self):
-        # matrix_format="bws" packs every level + transfer (CPU interpret)
+    def test_hierarchy_levels_are_ell(self):
+        # unstructured levels and transfers land in ELL (XLA gathers);
+        # one V-cycle matches the same cycle on dense numpy operators
         from pysolvers_tpu.linear.amg import (build_sa_hierarchy,
-                                              build_device_hierarchy)
-        from pysolvers_tpu.sparse.bws import BwsMatrix
-        Ap, _, _ = self._pipeline(m=60)
-        mlh = build_sa_hierarchy(
-            HostCSR(Ap.indptr, Ap.indices,
-                    Ap.data.astype(np.float32), Ap.shape), num_levels=3)
-        h = build_device_hierarchy(mlh, smoother="jacobi",
-                                   dtype=np.float32, matrix_format="bws")
-        assert isinstance(h.levels[-1].A_dev, BwsMatrix)
-        assert isinstance(h.levels[-1].P_dev, BwsMatrix)
-        assert isinstance(h.levels[-1].R_dev, BwsMatrix)
+                                              build_device_hierarchy,
+                                              v_cycle)
+        Ap, _, _ = self._pipeline(m=30)
+        mlh = build_sa_hierarchy(Ap, num_levels=3)
+        h = build_device_hierarchy(mlh, smoother="jacobi")
+        for lev in h.levels[1:]:
+            assert isinstance(lev.A_dev, pst.EllMatrix)
+            assert isinstance(lev.P_dev, pst.EllMatrix)
+            assert isinstance(lev.R_dev, pst.EllMatrix)
+        f = np.random.default_rng(2).normal(size=Ap.shape[0])
+        y = np.asarray(v_cycle(h, jnp.asarray(f), jnp.zeros(Ap.shape[0])))
 
-    def test_fine_level_reuse(self):
-        # AMGPreconditionerType.form reuses the solver's packed operator
-        from pysolvers_tpu.linear.amg import AMGPreconditionerType
-        from pysolvers_tpu.sparse.bws import BwsMatrix
-        Ap, _, _ = self._pipeline(m=60)
-        Ap32 = HostCSR(Ap.indptr, Ap.indices,
-                       Ap.data.astype(np.float32), Ap.shape)
-        A_dev = BwsMatrix.from_host_csr(Ap32, dtype=np.float32,
-                                        use_rcm=False)
-        amg = AMGPreconditionerType(num_iters=1, num_levels=3,
-                                    galerkin="host", matrix_format="bws")
-        prec = amg.form(Ap32, A_dev)
-        h = prec.traced[1]
-        assert h.levels[-1].A_dev is A_dev
+        def ref(k, fk, xk):
+            A = mlh.matrices[k].to_dense()
+            if k == 0:
+                return np.linalg.solve(A, fk)
+            dinv = 1.0 / np.diag(A)
+            for _ in range(2):
+                xk = xk + (2.0 / 3.0) * dinv * (fk - A @ xk)
+            r = mlh.restrictions[k - 1].to_dense() @ (fk - A @ xk)
+            xc = ref(k - 1, r, np.zeros_like(r))
+            xk = xk + mlh.prolongators[k - 1].to_dense() @ xc
+            for _ in range(2):
+                xk = xk + (2.0 / 3.0) * dinv * (fk - A @ xk)
+            return xk
+
+        y_ref = ref(len(mlh.matrices) - 1, f, np.zeros_like(f))
+        np.testing.assert_allclose(y, y_ref, rtol=1e-10, atol=1e-12)

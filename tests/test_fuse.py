@@ -8,7 +8,6 @@ import pytest
 import pysolvers_tpu as pst
 from pysolvers_tpu.ops.fuse import (SetupItem, blob_pack, blob_split,
                                     fused_build)
-from pysolvers_tpu.sparse.bws import BwsMatrix
 from pysolvers_tpu.sparse.host import HostCSR
 
 
@@ -70,41 +69,24 @@ def _scale_build(arrs, st):
 
 
 class TestFusedSetup:
-    def test_bws_host_pack_matches_direct(self):
-        H = _banded()
-        A_direct = BwsMatrix.from_host_csr(H, dtype=np.float32)
-        item, assemble, perm = BwsMatrix.host_pack(H, dtype=np.float32)
-        (out,) = fused_build([item])
-        A_fused = assemble(out)
-        np.testing.assert_array_equal(np.asarray(A_fused.perm), perm)
-        np.testing.assert_array_equal(np.asarray(A_fused.data),
-                                      np.asarray(A_direct.data))
-        np.testing.assert_array_equal(np.asarray(A_fused.lidx),
-                                      np.asarray(A_direct.lidx))
-        np.testing.assert_array_equal(np.asarray(A_fused.delta),
-                                      np.asarray(A_direct.delta))
-        assert A_fused.s_classes == A_direct.s_classes
-        assert A_fused.win_blocks == A_direct.win_blocks
-
     def test_ic_prep_fuses_with_pack(self):
-        """Operator pack + IC factor-plan build in ONE dispatch produce
-        the same preconditioner as the separate form() route."""
+        """A passthrough operator upload + IC factor-plan build in ONE
+        dispatch produce the same preconditioner as the separate form()
+        route."""
         from pysolvers_tpu.linear.ilu import ICPreconditionerType
+        from pysolvers_tpu.ops.fuse import passthrough_build
 
         H = _banded(spd=True)
-        item_A, asm_A, perm = BwsMatrix.host_pack(H, dtype=np.float32)
-        ip = np.empty(len(perm), dtype=np.int64)
-        ip[perm] = np.arange(len(perm))
-        rows, cols, vals = H.to_coo()
-        Hp = HostCSR.from_coo(ip[rows], ip[cols], vals, H.shape)
+        Hp = H.permute_symmetric(H.rcm_perm())
         Hp32 = HostCSR(Hp.indptr, Hp.indices,
                        Hp.data.astype(np.float32), Hp.shape)
 
         t = ICPreconditionerType(1e-3, 15, trisolve_mode="block")
         pp = t.prep(Hp32)
         assert pp is not None
-        outs = fused_build([item_A, pp[0]])
-        asm_A(outs[0])
+        d = Hp32.diagonal()
+        outs = fused_build([SetupItem((d,), passthrough_build, ()), pp[0]])
+        np.testing.assert_array_equal(np.asarray(outs[0]), d)
         prec_fused = pp[1](outs[1])
 
         prec_direct = ICPreconditionerType(
@@ -141,12 +123,9 @@ class TestFusedSetup:
 
 
 class TestFusedMixedSolve:
-    def test_mixed_factory_fused_path(self, monkeypatch):
-        """Force the backend branch that fuses pack+prec and check the
-        full factory solve still reaches 1e-10."""
-        import pysolvers_tpu.api as api
-
-        monkeypatch.setattr(api, "_bws_backend", lambda: True)
+    def test_mixed_factory_fused_path(self):
+        """Mixed factory solve with the block-trisolve IC preconditioner
+        reaches 1e-10; frozen matrix + prec reuse the formed products."""
         H = _banded(spd=True)
         x_exact = np.random.default_rng(5).standard_normal(H.shape[0])
         b = H.matvec(x_exact)
@@ -158,7 +137,6 @@ class TestFusedMixedSolve:
         assert st.success
         err = np.linalg.norm(np.asarray(st.soln) - x_exact)
         assert err < 1e-6 * np.linalg.norm(x_exact)
-        # frozen matrix + prec: repeat solve reuses the fused products
         solver.freeze_matrix()
         solver.freeze_prec()
         st2 = solver.solve(H, b)
@@ -167,41 +145,42 @@ class TestFusedMixedSolve:
 
 class TestSymbolicPackCache:
     def test_same_structure_repack_matches_fresh(self):
-        """A re-pack with new values on cached structure must equal a
-        fresh pack of the same matrix (cache cleared)."""
-        from pysolvers_tpu.sparse import bws as bws_mod
+        """An ELL re-pack with new values on the cached column table must
+        equal a fresh pack of the same matrix (cache cleared)."""
+        from pysolvers_tpu.sparse import device as dev_mod
 
         H1 = _banded(seed=11)
         rng = np.random.default_rng(12)
         H2 = HostCSR(H1.indptr, H1.indices,
                      rng.standard_normal(H1.nnz), H1.shape)
 
-        bws_mod._PACK_CACHE.clear()
-        A1 = BwsMatrix.from_host_csr(H1, dtype=np.float32)
-        assert len(bws_mod._PACK_CACHE) == 1
-        A2_cached = BwsMatrix.from_host_csr(H2, dtype=np.float32)
+        dev_mod._ELL_COLS_CACHE.clear()
+        A1 = pst.EllMatrix.from_host_csr(H1, dtype=np.float32)
+        assert len(dev_mod._ELL_COLS_CACHE) == 1
+        A2_cached = pst.EllMatrix.from_host_csr(H2, dtype=np.float32)
+        assert A2_cached.cols is A1.cols          # structure reused
 
-        bws_mod._PACK_CACHE.clear()
-        A2_fresh = BwsMatrix.from_host_csr(H2, dtype=np.float32)
+        dev_mod._ELL_COLS_CACHE.clear()
+        A2_fresh = pst.EllMatrix.from_host_csr(H2, dtype=np.float32)
 
         np.testing.assert_array_equal(np.asarray(A2_cached.data),
                                       np.asarray(A2_fresh.data))
-        np.testing.assert_array_equal(np.asarray(A2_cached.lidx),
-                                      np.asarray(A2_fresh.lidx))
-        np.testing.assert_array_equal(np.asarray(A2_cached.perm),
-                                      np.asarray(A2_fresh.perm))
-        assert A2_cached.s_classes == A2_fresh.s_classes
+        np.testing.assert_array_equal(np.asarray(A2_cached.cols),
+                                      np.asarray(A2_fresh.cols))
         # values actually differ from the first pack (not a stale hit)
         assert not np.array_equal(np.asarray(A2_cached.data),
                                   np.asarray(A1.data))
 
     def test_different_structure_not_aliased(self):
-        from pysolvers_tpu.sparse import bws as bws_mod
+        from pysolvers_tpu.sparse import device as dev_mod
 
-        bws_mod._PACK_CACHE.clear()
+        dev_mod._ELL_COLS_CACHE.clear()
         H1 = _banded(seed=21)
         H3 = _banded(n=704, seed=22)
-        BwsMatrix.from_host_csr(H1, dtype=np.float32)
-        A3 = BwsMatrix.from_host_csr(H3, dtype=np.float32)
-        assert len(bws_mod._PACK_CACHE) == 2
+        pst.EllMatrix.from_host_csr(H1, dtype=np.float32)
+        A3 = pst.EllMatrix.from_host_csr(H3, dtype=np.float32)
+        assert len(dev_mod._ELL_COLS_CACHE) == 2
         assert A3.shape == (704, 704)
+        y = np.asarray(pst.matvec(A3, jnp.ones(704, jnp.float32)))
+        np.testing.assert_allclose(y, H3.matvec(np.ones(704)), rtol=1e-5,
+                                   atol=1e-4)

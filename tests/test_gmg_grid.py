@@ -275,8 +275,8 @@ def test_gmg_precond_type_device_galerkin():
 
 def test_device_hierarchy_checkpoint_roundtrip(tmp_path, monkeypatch):
     """Split-path probed products persist and reload: the warm process
-    skips every probe dispatch (VERDICT r4 item 4 — at n>=1e8 probing
-    costs minutes of remote-compiler round trips per process) and the
+    skips every probe dispatch (at n>=1e8 each process would otherwise
+    compile and dispatch every probe again) and the
     loaded hierarchy V-cycles bit-identically.  A value change must
     invalidate the file (digest check) and rebuild."""
     from pysolvers_tpu.linear import gmg_grid as gg

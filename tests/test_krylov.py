@@ -245,14 +245,14 @@ class TestCGResidualReplacement:
 
     def _setup(self, lev=11):
         from pysolvers_tpu.problems import dh_test_problem
-        from pysolvers_tpu.ops.spmv import ell_spmv_f64_splitgather
+        from pysolvers_tpu.ops.spmv import ell_spmv_f64
         H, x_exact, b = dh_test_problem(lev)
         A32 = EllMatrix.from_host_csr(H, dtype=np.float32)
         A64 = EllMatrix.from_host_csr(H, dtype=np.float64)
         bn = np.linalg.norm(b)
         b_hi = jnp.asarray(b / bn)
         mv = lambda v: matvec(A32, v)
-        mv_hi = lambda v: ell_spmv_f64_splitgather(A64, v)
+        mv_hi = lambda v: ell_spmv_f64(A64, v)
         return H, x_exact, b, bn, b_hi, mv, mv_hi
 
     def test_true_residual_reaches_f64_grade(self):

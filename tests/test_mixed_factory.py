@@ -1,8 +1,8 @@
 """Mixed-precision route through the factory API (api.py precision="mixed").
 
 PCG/GMRES factories with precision="mixed" run the inner Krylov in f32 on
-the device kernels with host f64 residual refinement — the TPU route to
-the reference's tolerances.  The f32 operator is a traced pytree argument
+the device kernels with f64 residual refinement — the f32 route to the
+reference's tolerances.  The f32 operator is a traced pytree argument
 of one cached inner jit, so Newton steps that change Jacobian VALUES (not
 structure) reuse the compilation (refine._cached_inner_op).
 """
@@ -56,7 +56,7 @@ class TestMixedFactory:
 
     def test_newton_bratu_mixed(self):
         """Reference FDBratu2D.py:36-48 config with mixed-precision inner
-        PCG+AMG — the TPU-native Newton route (f64 outer on host, f32
+        PCG+AMG — the mixed Newton route (f64 outer on host, f32
         inner on device kernels)."""
         prob = Bratu2D(m=20, alpha=0.5, fmt="dia")
         inner = PCG(CommonSolverArgs(maxiter=400, tau=1e-12),

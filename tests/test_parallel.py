@@ -373,13 +373,12 @@ class TestEllHalo:
                                    H.matvec(x), rtol=1e-12)
 
     def test_matches_host_dh_rcm(self, mesh):
-        from pysolvers_tpu.sparse.bws import BwsMatrix
         from pysolvers_tpu.sparse.host import HostCSR
         from pysolvers_tpu.parallel import (shard_ell_halo,
                                             dist_ell_halo_spmv,
                                             pad_vector_ell_halo)
         H, x_exact, b = dh_test_problem(10)
-        perm = BwsMatrix._rcm_perm(H)
+        perm = H.rcm_perm()
         iperm = np.empty_like(perm)
         iperm[perm] = np.arange(len(perm))
         rows, cols, vals = H.to_coo()
@@ -392,13 +391,12 @@ class TestEllHalo:
                                    Hp.matvec(x), rtol=1e-12, atol=1e-12)
 
     def test_distributed_cg_halo(self, mesh):
-        from pysolvers_tpu.sparse.bws import BwsMatrix
         from pysolvers_tpu.sparse.host import HostCSR
         from pysolvers_tpu.parallel import (shard_ell_halo,
                                             dist_ell_halo_spmv,
                                             pad_vector_ell_halo)
         H, x_exact, b = dh_test_problem(10)
-        perm = BwsMatrix._rcm_perm(H)
+        perm = H.rcm_perm()
         iperm = np.empty_like(perm)
         iperm[perm] = np.arange(len(perm))
         rows, cols, vals = H.to_coo()

@@ -161,19 +161,18 @@ class TestJacobiTrisolveMode:
 
 class TestBwsSweepTrisolveMode:
     def test_ic_jacobi_bws_preconditions(self):
+        """The BWS sweep mode is gone: "jacobi" sweeps are its plain-JAX
+        replacement and still precondition an RCM-ordered problem, and
+        the old mode name is refused."""
         from pysolvers_tpu.linear.ilu import ICPreconditionerType
-        from pysolvers_tpu.sparse.bws import BwsMatrix
         H, x_exact, b = dh_test_problem(9)
-        # RCM-order so the factors stay banded (the BWS packing contract)
-        Ab = BwsMatrix.from_host_csr(H, dtype=np.float32)
-        perm = np.asarray(Ab.perm)
-        iperm = np.asarray(Ab.iperm)
-        rows, cols, vals = H.to_coo()
-        Hp = HostCSR.from_coo(iperm[rows], iperm[cols],
-                              vals.astype(np.float32), H.shape)
-        M = ICPreconditionerType(1e-3, 15, trisolve_mode="jacobi_bws",
-                                 sweeps=10).form(Hp)
-        A = EllMatrix.from_host_csr(Hp, dtype=np.float32)
+        perm = H.rcm_perm()
+        Hp = H.permute_symmetric(perm)
+        Hp32 = HostCSR(Hp.indptr, Hp.indices, Hp.data.astype(np.float32),
+                       Hp.shape)
+        M = ICPreconditionerType(1e-3, 15, trisolve_mode="jacobi",
+                                 sweeps=10).form(Hp32)
+        A = EllMatrix.from_host_csr(Hp32, dtype=np.float32)
         bp = jnp.asarray(b[perm].astype(np.float32))
         mv = lambda v: matvec(A, v)
         _, st0, _ = cg_solve(mv, bp, maxiter=500, tau=1e-5)
@@ -181,3 +180,5 @@ class TestBwsSweepTrisolveMode:
                              precond=M.apply_right)
         assert int(st1.reason) == StopReason.CONVERGED
         assert int(st1.k) < int(st0.k)
+        with pytest.raises(ValueError, match="trisolve_mode"):
+            ICPreconditionerType(trisolve_mode="jacobi_bws").form(Hp32)

@@ -70,8 +70,8 @@ class TestHostIR:
         assert r <= 1e-12 * np.linalg.norm(np.asarray(b))
 
     def test_host_residual_path(self):
-        """Outer residuals on host (numpy f64) — the TPU fast path where
-        emulated-f64 device matvecs would hit the scalar gather path."""
+        """Outer residuals on host (numpy f64), only the f32 inner
+        solve on the device."""
         from pysolvers_tpu.linear.refine import ir_solve_host
         H = fd_laplacian_2d(10)
         A32 = DiaMatrix.from_host_csr(H, dtype=np.float32)

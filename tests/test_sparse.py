@@ -290,13 +290,12 @@ def test_permute_symmetric_native_plan_matches_numpy(monkeypatch):
 
 class TestEllTMatrix:
     def test_slot_major_matches_row_major_splitgather(self):
-        """EllTMatrix (slot-major) f64 split-gather == EllMatrix path ==
-        host f64 matvec (the row-major tables tile to 128/k times their
-        data on TPU — the n=4.2M OOM; device.EllTMatrix docstring)."""
+        """EllTMatrix (slot-major) f64 matvec == EllMatrix path == host
+        f64 matvec."""
         import jax
         import jax.numpy as jnp
-        from pysolvers_tpu.ops.spmv import (ell_spmv_f64_splitgather,
-                                            ellt_spmv_f64_splitgather)
+        from pysolvers_tpu.ops.spmv import (ell_spmv_f64,
+                                            ellt_spmv_f64)
         from pysolvers_tpu.sparse.device import EllMatrix, EllTMatrix
         from pysolvers_tpu.problems import dh_test_problem
 
@@ -306,8 +305,8 @@ class TestEllTMatrix:
         assert T.k == E.k and T.shape == E.shape
         rng = np.random.default_rng(0)
         x = jnp.asarray(rng.random(H.shape[0]))
-        y_e = np.asarray(jax.jit(ell_spmv_f64_splitgather)(E, x))
-        y_t = np.asarray(jax.jit(ellt_spmv_f64_splitgather)(T, x))
+        y_e = np.asarray(jax.jit(ell_spmv_f64)(E, x))
+        y_t = np.asarray(jax.jit(ellt_spmv_f64)(T, x))
         y_h = H.matvec(np.asarray(x))
         np.testing.assert_allclose(y_t, y_e, rtol=0, atol=1e-13)
         np.testing.assert_allclose(y_t, y_h, rtol=1e-13, atol=1e-12)

@@ -61,7 +61,18 @@ class TestCheckpoint:
 
 class TestRoofline:
     def test_spmv_sol_memory_bound(self):
-        s = spmv_sol(nnz=5_000_000, n=1_000_000, fmt="ell")
-        assert s.bound() == "memory"
-        assert s.sol_seconds() > 0
+        s = spmv_sol(nnz=5_000_000, n=1_000_000, fmt="ell", peak_gbps=1000.0)
+        assert s.bytes_moved == 5_000_000 * 8 + 2 * 1_000_000 * 4
+        assert s.sol_seconds() == s.bytes_moved / 1e12
         assert 0 < s.achieved_fraction(s.sol_seconds() * 2) <= 0.5001
+        assert s.achieved_gbps(s.sol_seconds()) == 1000.0
+
+    def test_needs_measured_peak(self):
+        """No nominal peak table: a roofline share without a measured
+        peak is an error, never a silent default."""
+        s = spmv_sol(nnz=5, n=5, fmt="dia", n_diags=1)
+        try:
+            s.sol_seconds()
+            assert False, "expected ValueError"
+        except ValueError:
+            pass
